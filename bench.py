@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Headline benchmark: batched env-steps/s on one chip, honest per family.
+"""Headline benchmark: batched env-steps/s on one GPU, honest per family.
 
 Runs the lane-major (batch-last) fast path: full transition kernel + family
 hooks (BabyAI verifier, DynamicObstacles ball moves) + egocentric observation
@@ -9,7 +9,12 @@ pregenerated reservoir; the horizon exceeds max_steps so resets really fire).
 
 Prints ONE JSON line:
   {"metric": "env_steps_per_s", "value": N, "unit": "steps/s",
-   "vs_baseline": N, "extra": {per-family honest steps/s + VI sweeps/s}}
+   "vs_baseline": N, "device": {...}, "extra": {per-family honest steps/s +
+   VI sweeps/s + PPO}}
+
+``device`` names what ran it: JAX's platform, device kind and count, and
+the card's name and power limit.  Without a GPU the script exits non-zero;
+a family, DP domain or PPO run that fails makes the script fail.
 
 ``vs_baseline`` divides by the reference implementation's single-env CPU
 throughput measured in this environment (see BASELINE.md): the reference
@@ -21,17 +26,23 @@ partial observation every call, minigrid_env.py:520-645).
 from __future__ import annotations
 
 import json
+import pathlib
+import subprocess
+import sys
 import time
 
 import jax
 
-# Persistent compile cache: the generator programs are large; repeat bench
-# runs should pay compile once per program shape.
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_tpu_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-
 import minigrid_dynamicprogramming_tpu as mgtpu
 from minigrid_dynamicprogramming_tpu.parallel.lanes import lane_rollout
+from minigrid_dynamicprogramming_tpu.utils.compile_cache import (
+    enable_compile_cache,
+)
+from minigrid_dynamicprogramming_tpu.utils.device_info import (
+    card_info,
+    device_record,
+    find_gpu,
+)
 
 # Reference (CPU, single env, random actions incl. obs generation), measured
 # in-environment 2026-08-17; see BASELINE.md.
@@ -100,20 +111,11 @@ def _vi_sweeps_per_s(batch=1024, n_sweeps=128):
     return batch * n_sweeps / (time.perf_counter() - t0)
 
 
-def _vi_restricted_pair(batch=1024, n_sweeps=128):
-    """XLA vs Pallas on identical restricted-domain layouts.
-
-    DoorKey-8x8 has exactly one door, so the natural domain is
-    ``max_doors=1`` (C = 6 configs); the legacy ``vi_sweeps_per_s`` metric
-    keeps its historical ``max_doors=2`` padding for cross-round
-    comparability, while this pair compares the two backends on the same
-    un-padded workload (the Pallas kernel's dense (C, C') toggle table
-    exceeds VMEM at the padded C = 18)."""
+def _vi_d1_sweeps_per_s(batch=1024, n_sweeps=128):
+    """Restricted-domain VI sweeps/s on its natural domain: DoorKey-8x8 has
+    exactly one door, so ``max_doors=1`` (C = 6 configs)."""
     from functools import partial
 
-    from minigrid_dynamicprogramming_tpu.dp.pallas_vi import (
-        pallas_value_iteration,
-    )
     from minigrid_dynamicprogramming_tpu.dp.tabular import (
         extract_layout,
         value_iteration,
@@ -121,27 +123,19 @@ def _vi_restricted_pair(batch=1024, n_sweeps=128):
 
     states = _doorkey_states(batch)
     layouts = jax.jit(jax.vmap(partial(extract_layout, max_doors=1)))(states)
-    out = {}
     vi = jax.jit(
         jax.vmap(partial(value_iteration, gamma=0.995, n_sweeps=n_sweeps))
     )
     _sync(vi(layouts)[0])
     t0 = time.perf_counter()
     _sync(vi(layouts)[0])
-    out["xla"] = batch * n_sweeps / (time.perf_counter() - t0)
-    v = pallas_value_iteration(layouts, gamma=0.995, n_sweeps=n_sweeps)
-    _sync(v)
-    t0 = time.perf_counter()
-    v = pallas_value_iteration(layouts, gamma=0.995, n_sweeps=n_sweeps)
-    _sync(v)
-    out["pallas"] = batch * n_sweeps / (time.perf_counter() - t0)
-    return out
+    return batch * n_sweeps / (time.perf_counter() - t0)
 
 
 def _vi_key_sweeps_per_s(batch=512, n_sweeps=96, backend="xla"):
     """Key-position-domain VI sweeps/s (state space (key-loc, door-config,
-    dir, y, x) — ~21x the restricted domain's states per layout), XLA vs
-    Pallas backends on identical layouts."""
+    dir, y, x) — ~21x the restricted domain's states per layout): the XLA
+    sweeps or the fused kernel (dp/pallas_vi.py) on identical layouts."""
     from functools import partial
 
     from minigrid_dynamicprogramming_tpu.dp.pallas_vi import (
@@ -176,8 +170,7 @@ def _vi_obstructed_sweeps_per_s(batch=4, n_sweeps=64):
     door-config, dir, y, x) — ~HW^2-fold the key domain's states per
     layout) on BlockedUnlockPickup layouts.  XLA backend; the dense state
     tensor is ~(HW+2)^2 * Cd * 4 * HW f32 per layout (~46 MB at 11x6), so
-    the layout batch stays small and the Pallas VMEM budget is out of
-    reach — see dp/pallas_vi.py for the domains that fit."""
+    the layout batch stays small."""
     from functools import partial
 
     from minigrid_dynamicprogramming_tpu.dp.tabular_obstructed import (
@@ -255,10 +248,9 @@ def _vi_twokey_sweeps_per_s(batch=2, n_sweeps=48):
 
 
 def _ppo_steps_per_s(num_envs=32768, rollout_len=32):
-    """BASELINE config 5 on hardware: BabyAI-GoToDoor pool-autoreset envs
-    feeding the PPO learner on a single-chip mesh.  Config 5 specifies 64k
-    envs sharded over 2+ hosts, i.e. <= 32k per chip — 32k is the faithful
-    single-chip share (64k on one chip OOMs the rollout buffer).  Returns
+    """BASELINE config 5 on one card: BabyAI-GoToDoor pool-autoreset envs
+    feeding the PPO learner on a single-device mesh.  Config 5 specifies
+    64k envs sharded over 2+ hosts, i.e. <= 32k per device.  Returns
     (env-steps/s of the full update loop, rollout-phase seconds,
     learner-phase seconds) — the phase split comes from timing a
     zero-epoch update (rollout + GAE only) against the full update.
@@ -266,16 +258,10 @@ def _ppo_steps_per_s(num_envs=32768, rollout_len=32):
     Warmup is TWO calls, not one: the first call compiles; the second
     recompiles because the update's output array shardings differ from
     ``init``'s, and jit keys its cache on input shardings.  Timing from
-    call 3 measures steady state (rounds 1-4 timed from call 2 and so
-    reported the recompile, understating HEAD by >10x).
+    call 3 measures steady state.
 
-    Phase-split physics at HEAD (~0.09 s rollout / ~0.42 s learner): the
-    learner is now compute-bound, not assembly-bound.  Per update it does
-    epochs(2) x full-batch forward+backward = ~6 forward-equivalents per
-    sample vs the rollout's 1, so learner ~= 6 x rollout is the flops
-    floor for this model; the round-4 target "learner < rollout" was set
-    when both phases were dominated by gathers and is not reachable (nor
-    meaningful) once those are gone."""
+    Per update the learner does epochs(2) x full-batch forward+backward,
+    about 6 forward-equivalents per sample against the rollout's 1."""
     from minigrid_dynamicprogramming_tpu.models.ppo import PPO, PPOConfig
 
     env = mgtpu.make("BabyAI-GoToDoor-v0")
@@ -299,10 +285,7 @@ def _ppo_steps_per_s(num_envs=32768, rollout_len=32):
         return (time.perf_counter() - t0) / n
 
     full = timed(2)
-    try:
-        roll = timed(0)
-    except Exception:
-        roll = float("nan")
+    roll = timed(0)
     steps = num_envs * rollout_len
     return steps / full, roll, max(full - roll, 0.0)
 
@@ -318,9 +301,9 @@ def _ppo_learning_curve(
 ):
     """Train PPO on ``env_id`` on the chip and record the return curve.
 
-    Proves BASELINE config 5 end-to-end (VERDICT r4 next-#8): not just
-    throughput, but a policy actually learning a sparse-reward task harder
-    than Empty-5x5.  ``mean_return`` is the mean terminal reward over
+    Proves BASELINE config 5 end to end: not just throughput, but a policy
+    actually learning a sparse-reward task harder than Empty-5x5.
+    ``mean_return`` is the mean terminal reward over
     episodes finished inside each rollout window (MiniGrid terminal reward
     is ``1 - 0.9 * steps/max_steps``, so >= ``threshold`` means near-optimal
     solutions, not lucky walks).  Early-stops once the threshold holds for
@@ -367,10 +350,32 @@ def _ppo_learning_curve(
         "solved_at": solved_at,
         "wall_s": round(time.perf_counter() - t0, 2),
         "final_return": curve[-1]["mean_return"] if curve else None,
-        # thin the curve for the artifact: every update until solved is
-        # short enough to keep whole below 400 entries
-        "curve": curve if len(curve) <= 400 else curve[::2],
+        "curve": curve,
     }
+
+
+def _git_rev() -> str:
+    """HEAD of the checkout this script sits in, or ``unknown`` outside a
+    git checkout."""
+    try:
+        out = subprocess.run(
+            ["git", "rev-parse", "HEAD"],
+            cwd=pathlib.Path(__file__).resolve().parent,
+            capture_output=True,
+            text=True,
+            timeout=10,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+    return out.stdout.strip() if out.returncode == 0 else "unknown"
+
+
+def _device() -> dict:
+    """The GPU this run measures, or exit: no number comes from the CPU."""
+    gpu = find_gpu()
+    if gpu is None:
+        sys.exit("bench.py: JAX finds no GPU")
+    return {**device_record(gpu), "card": card_info()}
 
 
 def learn_main(out_path="LEARN.json") -> None:
@@ -379,32 +384,19 @@ def learn_main(out_path="LEARN.json") -> None:
     instruction-conditioned on the mission channel) and write the return
     curves + threshold crossings as a JSON artifact."""
     import datetime
-    import subprocess
 
+    device = _device()
     runs = [
         _ppo_learning_curve("MiniGrid-DoorKey-5x5-v0", threshold=0.90),
         _ppo_learning_curve("BabyAI-GoToDoor-v0", threshold=0.90),
     ]
-    try:
-        rev = (
-            subprocess.run(
-                ["git", "rev-parse", "HEAD"],
-                cwd="/root/repo",
-                capture_output=True,
-                text=True,
-                timeout=10,
-            ).stdout.strip()
-            or "unknown"
-        )
-    except Exception:
-        rev = "unknown"
     artifact = {
         "metric": "ppo_learning",
-        "git_rev": rev,
+        "git_rev": _git_rev(),
         "timestamp_utc": datetime.datetime.now(
             datetime.timezone.utc
         ).isoformat(timespec="seconds"),
-        "device": str(jax.devices()[0]),
+        "device": device,
         "runs": runs,
     }
     with open(out_path, "w") as f:
@@ -424,6 +416,7 @@ def learn_main(out_path="LEARN.json") -> None:
 
 
 def main() -> None:
+    device = _device()
     # Headline: DoorKey-8x8 (hook-free core MDP).
     headline = _lane_steps_per_s(
         "MiniGrid-DoorKey-8x8-v0",
@@ -437,8 +430,7 @@ def main() -> None:
     # Per-family sweep: one representative of every generation regime on
     # the same honest fast path (pool autoreset with 2 pregenerated layout
     # rounds INCLUDED in the timing, full obs encode every step,
-    # checksummed against DCE).  Smaller batch to bound runtime; steps/s
-    # at these sizes is within ~10% of the 64k-batch number.
+    # checksummed against DCE).  Smaller batch to bound runtime.
     fam = {
         "babyai_gotolocal": ("BabyAI-GoToLocal-v0", 1),
         "dynamicobstacles_8x8": ("MiniGrid-Dynamic-Obstacles-8x8-v0", 2),
@@ -450,21 +442,18 @@ def main() -> None:
         "fetch_8x8_n3": ("MiniGrid-Fetch-8x8-N3-v0", 8),
     }
     for name, (env_id, seed) in fam.items():
-        try:
-            extra[f"{name}_steps_per_s"] = round(
-                _lane_steps_per_s(
-                    env_id, 16384, 256, warmup=1, iters=2, seed=seed, rounds=2
-                ),
-                1,
-            )
-        except Exception as e:  # never let one family kill the headline
-            extra[f"{name}_steps_per_s"] = f"error: {type(e).__name__}"
-    # vi_sweeps_per_s (the padded max_doors=2 legacy domain) is retired per
-    # VERDICT r4 weak #5: renamed with an explicit _legacy_padded suffix for
-    # one round of overlap; the honest per-domain metrics are the
-    # vi_d1_* / vi_key_* / vi_obstructed_* pairs below.
+        extra[f"{name}_steps_per_s"] = round(
+            _lane_steps_per_s(
+                env_id, 16384, 256, warmup=1, iters=2, seed=seed, rounds=2
+            ),
+            1,
+        )
+    # vi_sweeps_per_s_legacy_padded is the restricted domain padded to
+    # max_doors=2; the per-domain metrics are the vi_d1_* / vi_key_* /
+    # vi_obstructed_* / vi_twokey_* entries.
     for name, fn in (
         ("vi_sweeps_per_s_legacy_padded", _vi_sweeps_per_s),
+        ("vi_d1_xla_sweeps_per_s", _vi_d1_sweeps_per_s),
         ("vi_key_sweeps_per_s", lambda: _vi_key_sweeps_per_s(backend="xla")),
         (
             "vi_key_pallas_sweeps_per_s",
@@ -473,43 +462,18 @@ def main() -> None:
         ("vi_obstructed_sweeps_per_s", _vi_obstructed_sweeps_per_s),
         ("vi_twokey_sweeps_per_s", _vi_twokey_sweeps_per_s),
     ):
-        try:
-            extra[name] = round(fn(), 1)
-        except Exception as e:  # never let a side metric kill the headline
-            extra[name] = f"error: {type(e).__name__}"
-    try:
-        pair = _vi_restricted_pair()
-        extra["vi_d1_xla_sweeps_per_s"] = round(pair["xla"], 1)
-        extra["vi_d1_pallas_sweeps_per_s"] = round(pair["pallas"], 1)
-    except Exception as e:
-        extra["vi_d1_pallas_sweeps_per_s"] = f"error: {type(e).__name__}"
+        extra[name] = round(fn(), 1)
 
-    try:
-        sps, t_roll, t_learn = _ppo_steps_per_s()
-        extra["ppo_steps_per_s"] = round(sps, 1)
-        extra["ppo_rollout_s"] = round(t_roll, 3)
-        extra["ppo_learner_s"] = round(t_learn, 3)
-    except Exception as e:
-        extra["ppo_steps_per_s"] = f"error: {type(e).__name__}"
+    sps, t_roll, t_learn = _ppo_steps_per_s()
+    extra["ppo_steps_per_s"] = round(sps, 1)
+    extra["ppo_rollout_s"] = round(t_roll, 3)
+    extra["ppo_learner_s"] = round(t_learn, 3)
 
-    # Attribution (VERDICT r4 weak #1: a stale capture must be
-    # distinguishable from a regression): stamp the measured revision.
+    # Stamp the measured revision, so a stale capture can be told apart
+    # from a regression.
     import datetime
-    import subprocess
 
-    try:
-        extra["git_rev"] = (
-            subprocess.run(
-                ["git", "rev-parse", "HEAD"],
-                cwd="/root/repo",
-                capture_output=True,
-                text=True,
-                timeout=10,
-            ).stdout.strip()
-            or "unknown"
-        )
-    except Exception:
-        extra["git_rev"] = "unknown"
+    extra["git_rev"] = _git_rev()
     extra["timestamp_utc"] = datetime.datetime.now(
         datetime.timezone.utc
     ).isoformat(timespec="seconds")
@@ -521,6 +485,7 @@ def main() -> None:
                 "value": round(headline, 1),
                 "unit": "steps/s",
                 "vs_baseline": round(headline / REFERENCE_STEPS_PER_S, 2),
+                "device": device,
                 "extra": extra,
             }
         )
@@ -528,8 +493,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    import sys
-
+    enable_compile_cache()
     if "--learn" in sys.argv:
         learn_main()
     else:

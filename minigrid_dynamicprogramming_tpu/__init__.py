@@ -1,11 +1,11 @@
-"""TPU-native Minigrid framework.
+"""Batched JAX Minigrid framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 cytab/Minigrid_DynamicProgramming (a fork of Farama Minigrid v2.3.1):
 struct-of-arrays world state, branchless batched transition and observation
 kernels, on-device procedural generation, device-side observation wrappers, a
-batched tabular value-iteration (dynamic-programming) solver, and multi-host
-sharding of environment batches over TPU meshes.
+batched tabular value-iteration (dynamic-programming) solver, and sharding
+of environment batches over device meshes.
 
 Public names are resolved lazily (PEP 562): importing the package does no
 device work, so ``parallel.distributed.initialize`` can run first in a

@@ -72,7 +72,7 @@ def benchmark(
     jax.block_until_ready(img)
     agent_view_fps = num_frames / (time.perf_counter() - t0)
 
-    # --- the TPU-native headline: batched env-steps/s --------------------
+    # --- the batched headline: env-steps/s on device --------------------
     # Blocking on obs_checksum forces the obs encoder to run every step —
     # the number includes observation generation, like the reference's step.
     res = rollout(env, jax.random.PRNGKey(2), batch, None, horizon, "regen")
@@ -112,7 +112,6 @@ def benchmark_dp(
     env_id: str = "MiniGrid-DoorKey-8x8-v0",
     batch: int = 1024,
     n_sweeps: int = 128,
-    use_pallas: bool = False,
 ) -> dict:
     """Value-iteration sweeps/s — the BASELINE.json DP metric.
 
@@ -133,20 +132,9 @@ def benchmark_dp(
     )
     layouts = jax.jit(jax.vmap(partial(extract_layout, max_doors=2)))(states)
 
-    if use_pallas:
-        from minigrid_dynamicprogramming_tpu.dp.pallas_vi import (
-            pallas_value_iteration,
-        )
-
-        vi = jax.jit(
-            jax.vmap(
-                partial(pallas_value_iteration, gamma=0.995, n_sweeps=n_sweeps)
-            )
-        )
-    else:
-        vi = jax.jit(
-            jax.vmap(partial(value_iteration, gamma=0.995, n_sweeps=n_sweeps))
-        )
+    vi = jax.jit(
+        jax.vmap(partial(value_iteration, gamma=0.995, n_sweeps=n_sweeps))
+    )
 
     v, policy = vi(layouts)  # compile
     jax.block_until_ready(v)
@@ -156,7 +144,7 @@ def benchmark_dp(
     sweeps_per_s = batch * n_sweeps / (time.perf_counter() - t0)
     results = {
         "env_id": env_id,
-        "vi_backend": "pallas" if use_pallas else "xla",
+        "vi_backend": "xla",
         "vi_sweeps_per_s": round(sweeps_per_s, 1),
         "vi_batch": batch,
         "vi_n_sweeps": n_sweeps,
@@ -177,7 +165,7 @@ def main() -> None:
     p.add_argument(
         "--dp",
         action="store_true",
-        help="also measure value-iteration sweeps/s (XLA, and Pallas on TPU)",
+        help="also measure value-iteration sweeps/s (XLA)",
     )
     p.add_argument(
         "--trace",
@@ -199,6 +187,11 @@ def main() -> None:
     )
     args = p.parse_args()
 
+    from minigrid_dynamicprogramming_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     if args.audit:
         import json
 
@@ -230,11 +223,7 @@ def main() -> None:
         for k, v in generation_acceptance(mgtpu.make(args.env_id)).items():
             print(f"gen_{k}: {v}")
     if args.dp:
-        benchmark_dp("MiniGrid-DoorKey-8x8-v0", use_pallas=False)
-        try:
-            benchmark_dp("MiniGrid-DoorKey-8x8-v0", use_pallas=True)
-        except Exception as e:  # Pallas needs TPU (or interpret mode)
-            print(f"vi_pallas: unavailable ({type(e).__name__})")
+        benchmark_dp("MiniGrid-DoorKey-8x8-v0")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Integer encodings and behavior lookup tables.
 
-TPU-native counterpart of the reference's ``minigrid/core/constants.py``
+Array-native counterpart of the reference's ``minigrid/core/constants.py``
 (see /root/reference/minigrid/core/constants.py:5-58) and of the
 ``WorldObj`` behavior predicates (``can_overlap``/``can_pickup``/``see_behind``,
 /root/reference/minigrid/core/world_object.py:46-64).

@@ -1,7 +1,7 @@
 """Pure-functional environment API.
 
 The reference exposes stateful ``gym.Env`` objects
-(/root/reference/minigrid/minigrid_env.py:24).  The TPU-native surface is a
+(/root/reference/minigrid/minigrid_env.py:24).  The batched surface is a
 pair of jittable pure functions over an explicit :class:`EnvState` pytree —
 ``reset(key) -> (obs, state)`` and ``step(key, state, action) ->
 (obs, state, reward, terminated, truncated, info)`` — batched with ``vmap``

@@ -23,8 +23,8 @@ from __future__ import annotations
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
 
+from minigrid_dynamicprogramming_tpu.core import struct
 from minigrid_dynamicprogramming_tpu.core.constants import OBJ_EMPTY
 
 # Number of env-specific int32 scratch slots (target positions, phase flags,
@@ -48,7 +48,7 @@ class EnvState:
     contains_color: jnp.ndarray  # (H, W) uint8
 
     # Object-identity bit planes: bit k marks cells holding an object tracked
-    # by descriptor slot k (the TPU form of the BabyAI verifier's
+    # by descriptor slot k (the array form of the BabyAI verifier's
     # ``ObjDesc.obj_set`` identity sets, verifier.py:104-169).  ``marks``
     # follows objects through pickup/drop (ground-truth identity);
     # ``vmarks`` is the position snapshot the verifier actually checks,

@@ -1,6 +1,6 @@
 """Documentation and GIF generators.
 
-TPU-framework counterpart of the reference's docs pipeline
+Framework counterpart of the reference's docs pipeline
 (/root/reference/docs/_scripts/gen_env_docs.py — one markdown page per env
 family with attributes + docstring; gen_gifs.py — one random-policy episode
 GIF per family).  Differences are deliberate: pages are built from the

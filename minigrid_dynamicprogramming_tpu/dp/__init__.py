@@ -1,8 +1,11 @@
 """Dynamic programming — the fork's namesake capability (SURVEY.md §0, §2.6).
 
 Batched exact value iteration over the tabular (door-config, carrying, dir,
-y, x) state space of generated layouts: an XLA structured-sweep path
-(:mod:`.tabular`) plus a VMEM-resident Pallas TPU kernel (:mod:`.pallas_vi`).
+y, x) state space of generated layouts, as XLA structured sweeps
+(:mod:`.tabular`).  The wider domains (key position, obstructing ball, two
+keys) live in :mod:`.tabular_key`, :mod:`.tabular_obstructed` and
+:mod:`.tabular_twokey`; :mod:`.pallas_vi` holds a fused GPU kernel for the
+key-position domain.
 """
 
 from minigrid_dynamicprogramming_tpu.dp.tabular import (
@@ -15,13 +18,11 @@ from minigrid_dynamicprogramming_tpu.dp.tabular import (
     steps_to_go,
     value_iteration,
 )
-from minigrid_dynamicprogramming_tpu.dp.pallas_vi import pallas_value_iteration
 
 __all__ = [
     "TabularLayout",
     "extract_layout",
     "value_iteration",
-    "pallas_value_iteration",
     "solve",
     "greedy_action",
     "state_value",

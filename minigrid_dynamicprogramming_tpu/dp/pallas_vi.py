@@ -1,468 +1,242 @@
-"""Pallas TPU kernel for batched value iteration.
+"""Fused key-domain value iteration: a Pallas kernel for the GPU (Triton).
 
-The XLA path (:func:`..tabular.value_iteration`) materializes V to HBM after
-every Bellman sweep; for the tiny per-layout state spaces here (DoorKey-8x8:
-S = 1536 states) that makes VI bandwidth-bound.  This kernel keeps the whole
-value tensor **resident in VMEM across all sweeps** and lays the layout batch
-along the 128-lane axis, so each sweep is pure VPU work on fully-utilized
-registers with zero HBM traffic:
+The XLA path (:func:`..tabular_key.key_value_iteration`) runs one Bellman
+backup per sweep as separate array programs: it materialises the seven
+action branches of the (K, Cd, 4, H, W) value tensor, gathers along the
+key-location axis for the drop action and writes the carried-key row back
+with ``.at[CARRIED].set``.  This kernel runs every sweep of one layout
+inside one program, so a sweep reads V once from the L1/L2 caches and
+writes it once:
 
-    V layout:  (C, 4, H*W, B_tile)   — batch on lanes, positions on sublanes
-    left/right -> static dir-slab reindexing
-    forward    -> sublane roll by -(dy*W + dx)  (border wrap masked by walls)
-    pickup     -> carry-bit slab flip
-    toggle     -> sum over C target slabs weighted by a (C, C, B) select
-                  table (C is tiny, so the gather becomes 6 multiply-adds)
+* one program per layout; the sweep loop runs inside the kernel;
+* V lives in two per-layout buffers in device memory (Jacobi ping-pong),
+  which are kernel outputs; a block-wide barrier separates the sweeps;
+* the 64 cell rows of the key-location axis and the carried-key row are
+  separate buffers, so every block is a power of two (the raster is
+  padded to ``P``, a power of two);
+* each (config, direction) slab is processed in row chunks of
+  ``(KB, P)``: turns read the neighbouring direction slabs, forward and
+  toggle are gathers at the front cell and the toggled config, pickup
+  selects the carried row, and the carried row's drop is a gather of the
+  front cell's row.
 
-All per-layout structure (walkability per config, goal/lava/key/door front
-masks, the toggle-transition table) is precomputed once with XLA and streamed
-in as dense mask tensors; the sweep loop runs entirely on-chip.
-
-Supports one key + up to ``max_doors`` doors like the XLA path, but the mask
-tensors grow as 3^D — intended for the D <= 2 env families (DoorKey, Unlock,
-LavaGap, Crossing, Empty, FourRooms...).
+Branch semantics mirror :func:`..tabular_key._backup` term for term; the
+branch maximum is taken before the discount, which is exact in floating
+point because scaling by ``gamma > 0`` is monotone.  Terminal rewards
+(goal ahead, or the pickup target ahead with empty hands) are 1.0, above
+every discounted branch, so they are applied after the maximum.
 """
 
 from __future__ import annotations
 
-import math
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from minigrid_dynamicprogramming_tpu.dp.tabular import (
-    TabularLayout,
-    _cfg_tables,
-    _num_cfg,
-    _shift_from,
+from minigrid_dynamicprogramming_tpu.dp.tabular_key import (
     _DIRS,
+    KeyTabularLayout,
+    _door_tables,
+    _front_index,
+    _shift_from,
 )
 
-__all__ = ["pallas_value_iteration"]
+__all__ = ["pallas_key_value_iteration"]
 
-LANES = 128
+# Elements per (key-location rows x raster) block, and warps per program:
+# the fastest of the four settings timed on the H100 at 512 DoorKey-8x8
+# layouts x 96 sweeps (blocks of 16 or 32 rows with 4 warps, 16 or 64 rows
+# with 8; a DoorKey-8x8 row is 64 cells).  Wider rasters take fewer rows
+# per block, so the registers per thread stay the same.
+BLOCK_ELEMS = 4096
+NUM_WARPS = 8
+
+# Bit layout of the per-(dir, config, cell) flag word.
+_WALK, _CLOSED, _UNLOCK, _GOAL, _LAVA, _TARGET, _DROP = range(7)
+_CFG_SHIFT = 8  # config reached by toggling the door ahead
 
 
-def _build_masks(layout: TabularLayout):
-    """Per-layout mask planes in (.., H, W) layout (vmapped over B later).
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
-    Returns walk_n (4, C, H, W), goal_n/lava_n/key_front/door_front
-    (4, H, W), tsel (C, C) — all f32.
-    """
-    walk, toggle_cfg, carry = _cfg_tables(layout)
-    C = walk.shape[0]
+
+def _layout_tables(layout: KeyTabularLayout, P: int):
+    """Per-layout kernel inputs over the raster padded to ``P`` cells:
+    flags (4, C, P) int32 and the front cell's raster index (4, P) int32
+    (-1 out of bounds)."""
     h, w = layout.base_walk.shape
-    f32 = jnp.float32
-
-    walk_n, goal_n, lava_n, key_f, door_f = [], [], [], [], []
-    ys = jnp.arange(h)[:, None]
-    xs = jnp.arange(w)[None, :]
-    for dx, dy in _DIRS:
-        walk_n.append(_shift_from(walk.astype(f32), (dx, dy)))
-        goal_n.append(_shift_from(layout.goal.astype(f32), (dx, dy)))
-        lava_n.append(_shift_from(layout.lava.astype(f32), (dx, dy)))
-        key_f.append(
-            ((xs + dx == layout.key_pos[0]) & (ys + dy == layout.key_pos[1]))
-            .astype(f32)
-        )
-        door_f.append((_shift_from(layout.door_id + 1, (dx, dy)) > 0).astype(f32))
-
-    # tsel[c, c'] = 1 iff toggling the front door moves config c -> c'.
-    # With a single flat table the per-cell door identity is lost; restrict
-    # to layouts where every in-budget door reachable from a cell determines
-    # the slot via door_front masks per slot.  For D slots we build the
-    # transition for the door actually faced by summing per-slot masks at
-    # kernel level; to keep the kernel simple we assume at most one door is
-    # adjacent to any cell per direction (true for the supported families)
-    # and use the per-cell slot id to pick the row.
-    D = layout.n_doors
-    cfg = jnp.arange(C)
-    tsel = []
-    for k in range(D):
-        tgt = toggle_cfg[:, k]  # (C,)
-        tsel.append(jax.nn.one_hot(tgt, C, dtype=f32))  # (C, C')
-    tsel = jnp.stack(tsel)  # (D, C, C')
-
-    # door slot id at the front cell per dir: (4, H, W) in [0, D), 0 if none
-    slot_f = []
-    for dx, dy in _DIRS:
-        fid = _shift_from(layout.door_id + 1, (dx, dy)) - 1
-        slot_f.append(jnp.clip(fid, 0, D - 1))
-    slot_f = jnp.stack(slot_f).astype(jnp.int32)  # (4, H, W)
-
-    # Pre-resolve the per-cell toggle table: tmask[c, c', 4, H, W] =
-    # tsel[slot_f, c, c'] where a door is faced.  For D small this is the
-    # clean dense form the kernel consumes.
-    tmask = tsel[slot_f]  # (4, H, W, C, C')
-    tmask = jnp.moveaxis(tmask, (3, 4), (0, 1))  # (C, C', 4, H, W)
-
-    return (
-        jnp.stack(walk_n, 0).reshape(4, C, h * w),
-        jnp.stack(goal_n, 0).reshape(4, h * w),
-        jnp.stack(lava_n, 0).reshape(4, h * w),
-        jnp.stack(key_f, 0).reshape(4, h * w),
-        jnp.stack(door_f, 0).reshape(4, h * w),
-        tmask.reshape(C, C, 4, h * w),
-    )
-
-
-def _vi_kernel(
-    walk_ref, goal_ref, lava_ref, keyf_ref, doorf_ref, tmask_ref,
-    vout_ref, v_s, v_n, *, C, W, HW, gamma, n_sweeps,
-):
-    f32 = jnp.float32
-    v_s[:] = jnp.zeros_like(v_s)
-
-    # pltpu.roll requires non-negative shifts; rolls are cyclic so take mod.
-    shifts = [(-(dy * W + dx)) % HW for dx, dy in _DIRS]
-
-    def sweep(_, carry=None):
-        for c in range(C):
-            for d in range(4):
-                v_cd = v_s[c, d]
-                # left / right (dir rolls are static slab picks).
-                q = jnp.maximum(v_s[c, (d - 1) % 4], v_s[c, (d + 1) % 4])
-                # forward.
-                vn = pltpu.roll(v_cd, shifts[d], axis=0)
-                moved = jnp.where(walk_ref[d, c] > 0, vn, v_cd)
-                qf = jnp.where(lava_ref[d] > 0, 0.0, moved)
-                q = jnp.maximum(q, qf)
-                # pickup (carry-bit flip; only from carry == 0 slabs).
-                if c % 2 == 0:
-                    q = jnp.maximum(
-                        q, jnp.where(keyf_ref[d] > 0, v_s[c + 1, d], v_cd)
-                    )
-                # toggle: target-config mix where facing a door.
-                tv = tmask_ref[c, 0, d] * v_s[0, d]
-                for c2 in range(1, C):
-                    tv += tmask_ref[c, c2, d] * v_s[c2, d]
-                q = jnp.maximum(q, jnp.where(doorf_ref[d] > 0, tv, v_cd))
-                # stay (drop/done/no-op).
-                q = jnp.maximum(q, v_cd)
-                # one discounted step, then the goal terminal overrides
-                # (reward 1 regardless of V at the goal cell).
-                q = gamma * q
-                q = jnp.where(goal_ref[d] * walk_ref[d, c] > 0, 1.0, q)
-                v_n[c, d] = q
-        v_s[:] = v_n[:]
-        return carry
-
-    jax.lax.fori_loop(0, n_sweeps, sweep, None)
-    vout_ref[:] = v_s[:]
-
-
-@partial(jax.jit, static_argnames=("gamma", "n_sweeps"))
-def pallas_value_iteration(
-    layouts: TabularLayout, gamma: float = 0.995, n_sweeps: int = 256
-):
-    """Batched VI on TPU via the VMEM-resident Pallas kernel.
-
-    ``layouts`` has a leading batch axis B (pad to a multiple of 128 for
-    full lane utilization).  Returns V with shape (B, C, 4, H, W), equal to
-    ``vmap(value_iteration)`` up to float associativity.
-    """
-    B = layouts.base_walk.shape[0]
-    h, w = layouts.base_walk.shape[1:]
     HW = h * w
-    D = layouts.door_pos.shape[-2]
-    C = _num_cfg(D)
-
-    walk, goal, lava, keyf, doorf, tmask = jax.vmap(_build_masks)(layouts)
-    # Move batch to the last (lane) axis.
-    to_lanes = lambda x: jnp.moveaxis(x, 0, -1)
-    walk, goal, lava, keyf, doorf, tmask = map(
-        to_lanes, (walk, goal, lava, keyf, doorf, tmask)
-    )
-
-    pad = (-B) % LANES
-    if pad:
-        padf = lambda x: jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
-        walk, goal, lava, keyf, doorf, tmask = map(
-            padf, (walk, goal, lava, keyf, doorf, tmask)
-        )
-    Bp = B + pad
-
-    grid = (Bp // LANES,)
-
-    def spec(shape):
-        nd = len(shape)
-        return pl.BlockSpec(
-            shape + (LANES,),
-            lambda i: (0,) * nd + (i,),
-            memory_space=pltpu.VMEM,
-        )
-
-    kernel = partial(
-        _vi_kernel, C=C, W=w, HW=HW, gamma=gamma, n_sweeps=n_sweeps
-    )
-    v = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            spec((4, C, HW)),
-            spec((4, HW)),
-            spec((4, HW)),
-            spec((4, HW)),
-            spec((4, HW)),
-            spec((C, C, 4, HW)),
-        ],
-        out_specs=spec((C, 4, HW)),
-        out_shape=jax.ShapeDtypeStruct((C, 4, HW, Bp), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((C, 4, HW, LANES), jnp.float32),
-            pltpu.VMEM((C, 4, HW, LANES), jnp.float32),
-        ],
-    )(walk, goal, lava, keyf, doorf, tmask)
-
-    v = jnp.moveaxis(v, -1, 0)[:B]  # (B, C, 4, HW)
-    return v.reshape(B, C, 4, h, w)
-
-
-# ---------------------------------------------------------------------------
-# Key-position domain (dp/tabular_key.py) — VMEM-resident Pallas VI.
-#
-# V layout per layout-instance: (C, 4, K, L) with the H*W raster on the
-# 128-LANE axis (padded; P = 128 // HW layouts share one block when the
-# grid is small, e.g. two DoorKey-8x8 layouts per block) and the key-loc
-# axis K = H*W + 1 on sublanes.  Every transition is a lane roll, a slab
-# select, or a sublane-axis reduction:
-#
-#   forward -> lane roll by -(dy*W + dx); cross-layout wrap is masked by
-#              the border walls baked into the walk masks
-#   pickup  -> select the CARRIED sublane row where facing the key
-#   drop    -> key-loc jumps CARRIED -> front(cell): a diagonal gather,
-#              computed as (V * dropsel).sum(sublanes) with a precomputed
-#              one-hot (K, L) diagonal mask
-#   toggle  -> C-way config mix exactly like the restricted kernel
-#
-# Branch semantics mirror dp/tabular_key._backup term for term, so the
-# result equals key_value_iteration up to float associativity.
-# ---------------------------------------------------------------------------
-
-
-def _build_key_masks(layout, HW: int):
-    """Per-layout mask planes for the key-domain kernel, flattened to the
-    (..., HW) raster; the caller concatenates P layouts along the lane
-    axis.  All f32."""
-    from minigrid_dynamicprogramming_tpu.dp.tabular_key import (
-        KeyTabularLayout,
-        _DIRS as KDIRS,
-        _door_tables,
-        _front_index,
-        _shift_from,
-    )
-
-    h, w = layout.base_walk.shape
-    f32 = jnp.float32
-    K = HW + 1
-    CARRIED = HW
-
     _, door_block, bitmask, locked_cell, closed_cell = _door_tables(layout)
     C = door_block.shape[0]
     unlock_cell = locked_cell & layout.door_unlockable[
         jnp.clip(layout.door_id, 0, layout.n_doors - 1)
     ][None]
-    kloc = jnp.arange(K, dtype=jnp.int32)
-
-    walk_n, goal_n, lava_n, keyfront, target_n, dropsel, droppable_n = (
-        [], [], [], [], [], [], [])
-    closed_n, unlock_n, tmask = [], [], []
     ys = jnp.arange(h)[:, None]
     xs = jnp.arange(w)[None, :]
     target_cell = (xs == layout.target_pos[0]) & (ys == layout.target_pos[1])
-    cfg = jnp.arange(C, dtype=jnp.int32)
-    for dxy in KDIRS:
-        fidx = _front_index(h, w, dxy)  # (H, W), -1 OOB
-        base = layout.base_walk[None] & ~door_block  # (C, H, W)
-        walk_n.append(_shift_from(base.astype(f32), dxy).reshape(C, HW))
-        goal_n.append(_shift_from(layout.goal.astype(f32), dxy).reshape(HW))
-        lava_n.append(_shift_from(layout.lava.astype(f32), dxy).reshape(HW))
-        kf = (kloc[:, None] == fidx.reshape(-1)[None]) & (
-            fidx.reshape(-1) >= 0
-        )[None]
-        kf = kf.at[CARRIED].set(False)
-        keyfront.append(kf.astype(f32))  # (K, HW)
-        target_n.append(
-            _shift_from(target_cell.astype(jnp.int32), dxy)
-            .astype(f32).reshape(HW)
-        )
-        drp = (
+    cfg = jnp.arange(C, dtype=jnp.int32)[:, None, None]
+    base = layout.base_walk[None] & ~door_block
+
+    def bit(x, b):
+        return x.astype(jnp.int32) << b
+
+    flags, front = [], []
+    for dxy in _DIRS:
+        fidx = _front_index(h, w, dxy)
+        droppable = (
             _shift_from(layout.base_empty, dxy)
             & (fidx >= 0)
             & ~_shift_from(layout.door_id >= 0, dxy)
-        ).reshape(HW)  # (HW,)
-        droppable_n.append(drp.astype(f32))
-        dsel = (kloc[:, None] == fidx.reshape(-1)[None]) & drp[None]
-        dropsel.append(dsel.astype(f32))  # (K, HW)
-        closed_n.append(_shift_from(closed_cell, dxy).astype(f32).reshape(C, HW))
-        unlock_n.append(_shift_from(unlock_cell, dxy).astype(f32).reshape(C, HW))
-        bit_n = _shift_from(bitmask, dxy).reshape(HW)  # (HW,) int32
-        new_cfg = cfg[:, None] | bit_n[None]  # (C, HW)
-        tmask.append(
-            (new_cfg[:, None, :] == cfg[None, :, None]).astype(f32)
-        )  # (C, C', HW)
-
-    stack = lambda xs_: jnp.stack(xs_, 0)
-    return (
-        stack(walk_n),      # (4, C, HW)
-        stack(goal_n),      # (4, HW)
-        stack(lava_n),      # (4, HW)
-        stack(keyfront),    # (4, K, HW)
-        stack(target_n),    # (4, HW)
-        stack(droppable_n), # (4, HW)
-        stack(dropsel),     # (4, K, HW)
-        stack(closed_n),    # (4, C, HW)
-        stack(unlock_n),    # (4, C, HW)
-        stack(tmask),       # (4, C, C, HW)
+        )
+        per_cell = (
+            bit(_shift_from(layout.goal, dxy), _GOAL)
+            | bit(_shift_from(layout.lava, dxy), _LAVA)
+            | bit(_shift_from(target_cell, dxy), _TARGET)
+            | bit(droppable, _DROP)
+        )
+        f = (
+            bit(_shift_from(base, dxy), _WALK)
+            | bit(_shift_from(closed_cell, dxy), _CLOSED)
+            | bit(_shift_from(unlock_cell, dxy), _UNLOCK)
+            | per_cell[None]
+            | ((cfg | _shift_from(bitmask, dxy)[None]) << _CFG_SHIFT)
+        )
+        flags.append(f.reshape(C, HW))
+        front.append(fidx.reshape(HW))
+    flags = jnp.pad(jnp.stack(flags), ((0, 0), (0, 0), (0, P - HW)))
+    front = jnp.pad(
+        jnp.stack(front), ((0, 0), (0, P - HW)), constant_values=-1
     )
+    return flags, front
 
 
 def _key_vi_kernel(
-    walk_ref, goal_ref, lava_ref, keyf_ref, targ_ref, drpn_ref, dsel_ref,
-    closed_ref, unlock_ref, tmask_ref,
-    vout_ref, v_s, v_n, *, C, K, W, HW, L, gamma, n_sweeps,
+    flags_ref, front_ref, vc_a, vr_a, vc_b, vr_b,
+    *, P, C, KB, gamma, n_sweeps, barrier,
 ):
-    CARRIED = HW  # sublane row of the carried-key slice
-    v_s[:] = jnp.zeros_like(v_s)
-    # Lane rolls are cyclic over the FULL packed lane width L (not HW —
-    # reducing the shift mod HW would land interior reads in the adjacent
-    # layout's segment); wrapped reads then only correspond to
-    # out-of-bounds fronts, which the border walls baked into the walk
-    # masks keep from ever being selected.
-    shifts = [(-(dy * W + dx)) % L for dx, dy in
-              ((1, 0), (0, 1), (-1, 0), (0, -1))]
+    # Flat offsets: cell rows are (k, c, d, cell); the carried row is
+    # (c, d, cell).
+    SD, SC = P, 4 * P
+    SK = C * SC
+    f32 = jnp.float32
+    cell = jnp.arange(P, dtype=jnp.int32)
+    krow = jnp.arange(KB, dtype=jnp.int32)[:, None]
+    n_chunks = P // KB
 
-    def sweep(_, carry=None):
+    def sync():
+        if barrier:
+            plgpu.debug_barrier()
+
+    @pl.loop(0, n_chunks * C * 4)
+    def _(j):
+        chunk = pl.ds(j * KB * P, KB * P)
+        plgpu.store(vc_a.at[chunk], jnp.zeros(KB * P, f32))
+
+    plgpu.store(vr_a.at[pl.ds(0, C * 4 * P)], jnp.zeros(C * 4 * P, f32))
+    sync()
+
+    def half_sweep(src_c, src_r, dst_c, dst_r):
         for c in range(C):
             for d in range(4):
-                v_cd = v_s[c, d]  # (K, L)
-                row = jax.lax.broadcasted_iota(jnp.int32, (K, L), 0)
-                # left / right (Actions 0/1): static dir-slab picks.
-                q = jnp.maximum(v_s[c, (d - 1) % 4], v_s[c, (d + 1) % 4])
-                # forward (Action 2): lane roll + per-(k, cell) walk mask.
-                vn = pltpu.roll(v_cd, shifts[d], axis=1)
-                can = (walk_ref[0, d, c] > 0)[None] & ~(keyf_ref[0, d] > 0)
-                qf = jnp.where(can, vn, v_cd)
-                qf = jnp.where((lava_ref[0, d] > 0)[None], 0.0, qf)
-                q = jnp.maximum(q, qf)
-                # pickup (Action 3): facing the key -> CARRIED row.
-                v_car = v_cd[CARRIED][None]  # (1, L)
-                q = jnp.maximum(
-                    q, jnp.where(keyf_ref[0, d] > 0, v_car, v_cd)
-                )
-                # drop (Action 4): CARRIED row jumps to the front cell's
-                # key-loc row — diagonal gather via sublane reduction.
-                diag = jnp.sum(v_cd * dsel_ref[0, d], axis=0)  # (L,)
-                q_drop_car = jnp.where(
-                    drpn_ref[0, d] > 0, diag, v_cd[CARRIED]
-                )
-                q = jnp.maximum(
-                    q,
-                    jnp.where(row == CARRIED, q_drop_car[None], v_cd),
-                )
-                # toggle (Action 5): config mix where facing a door this
-                # state can open (closed always; locked iff key carried).
-                tv = tmask_ref[0, d, c, 0] * v_s[0, d]
-                for c2 in range(1, C):
-                    tv = tv + tmask_ref[0, d, c, c2] * v_s[c2, d]
-                allowed = (closed_ref[0, d, c] > 0)[None] | (
-                    (unlock_ref[0, d, c] > 0)[None] & (row == CARRIED)
-                )
-                q = jnp.maximum(q, jnp.where(allowed, tv, v_cd))
-                # stay (done / failed actions).
-                q = jnp.maximum(q, v_cd)
-                q = gamma * q
-                # terminal overrides (undiscounted 1.0; they dominate every
-                # discounted branch, so post-max application is exact —
-                # tabular_key._backup applies them per branch):
-                q = jnp.where((goal_ref[0, d] > 0)[None], 1.0, q)
-                q = jnp.where(
-                    (targ_ref[0, d] > 0)[None] & (row != CARRIED), 1.0, q
-                )
-                v_n[c, d] = q
-        v_s[:] = v_n[:]
-        return carry
+                fl = plgpu.load(flags_ref.at[pl.ds((d * C + c) * P, P)])
+                fr = plgpu.load(front_ref.at[pl.ds(d * P, P)])
 
-    jax.lax.fori_loop(0, n_sweeps, sweep, None)
-    vout_ref[0] = v_s[:]
+                def has(b):
+                    return ((fl >> b) & 1) != 0
+
+                fwd_ok = has(_WALK) & ~has(_LAVA)
+                closed = has(_CLOSED)
+                terminal = has(_GOAL)
+                frc = jnp.maximum(fr, 0)
+                cd = c * SC + d * SD
+                turn_l = c * SC + ((d - 1) % 4) * SD
+                turn_r = c * SC + ((d + 1) % 4) * SD
+                tog = (fl >> _CFG_SHIFT) * SC + d * SD
+                v_car = plgpu.load(src_r.at[cd + cell])
+
+                @pl.loop(0, n_chunks)
+                def _(j):
+                    k = j * KB + krow  # (KB, 1) key locations
+                    row = k * SK
+                    vd = plgpu.load(src_c.at[row + cd + cell])
+                    vl = plgpu.load(src_c.at[row + turn_l + cell])
+                    vr = plgpu.load(src_c.at[row + turn_r + cell])
+                    q = jnp.maximum(vd, jnp.maximum(vl, vr))
+                    vn = plgpu.load(src_c.at[row + cd + frc])
+                    q = jnp.where(fwd_ok & (fr != k), jnp.maximum(q, vn), q)
+                    q = jnp.where(fr == k, jnp.maximum(q, v_car), q)
+                    vt = plgpu.load(src_c.at[row + tog + cell])
+                    q = jnp.where(closed, jnp.maximum(q, vt), q)
+                    q = jnp.where(terminal | has(_TARGET), 1.0, gamma * q)
+                    plgpu.store(dst_c.at[row + cd + cell], q)
+
+                # Carried-key row: no pickup; drop puts the key on the
+                # front cell; toggle may also unlock.
+                q = jnp.maximum(v_car, plgpu.load(src_r.at[turn_l + cell]))
+                q = jnp.maximum(q, plgpu.load(src_r.at[turn_r + cell]))
+                vn = plgpu.load(src_r.at[cd + frc])
+                q = jnp.where(fwd_ok, jnp.maximum(q, vn), q)
+                vdrop = plgpu.load(src_c.at[frc * SK + cd + cell])
+                q = jnp.where(has(_DROP), jnp.maximum(q, vdrop), q)
+                vt = plgpu.load(src_r.at[tog + cell])
+                q = jnp.where(closed | has(_UNLOCK), jnp.maximum(q, vt), q)
+                q = jnp.where(terminal, 1.0, gamma * q)
+                plgpu.store(dst_r.at[cd + cell], q)
+        sync()
+
+    @pl.loop(0, n_sweeps // 2)
+    def _(i):
+        half_sweep(vc_a, vr_a, vc_b, vr_b)
+        half_sweep(vc_b, vr_b, vc_a, vr_a)
+
+    if n_sweeps % 2:
+        half_sweep(vc_a, vr_a, vc_b, vr_b)
 
 
-@partial(jax.jit, static_argnames=("gamma", "n_sweeps"))
-def pallas_key_value_iteration(layouts, gamma: float = 0.995, n_sweeps: int = 256):
-    """Batched key-domain VI on TPU via the VMEM-resident kernel.
+@partial(jax.jit, static_argnames=("gamma", "n_sweeps", "interpret"))
+def pallas_key_value_iteration(
+    layouts: KeyTabularLayout,
+    gamma: float = 0.995,
+    n_sweeps: int = 256,
+    *,
+    interpret: bool = False,
+):
+    """Batched key-domain VI, one kernel program per layout.
 
-    ``layouts`` is a vmapped :class:`..tabular_key.KeyTabularLayout` with
-    leading batch axis B.  Returns V with shape (B, K, C, 4, H, W) matching
-    ``vmap(key_value_iteration)``'s V (up to float associativity).  The
-    policy, if needed, is one extra XLA argmax backup over this V."""
-    B = layouts.base_walk.shape[0]
-    h, w = layouts.base_walk.shape[1:]
+    ``layouts`` is a :class:`..tabular_key.KeyTabularLayout` with a leading
+    batch axis B.  Returns V with shape (B, K, C, 4, H, W), equal to the V
+    of ``vmap(key_value_iteration)``.  The policy, if needed, is one XLA
+    argmax backup over this V.  ``interpret=True`` runs the kernel in the
+    Pallas interpreter (tests on the CPU)."""
+    B, h, w = layouts.base_walk.shape
     HW = h * w
-    K = HW + 1
-    D = layouts.door_pos.shape[-2]
-    C = 1 << D
-    P = max(1, LANES // HW)  # layouts packed per block along lanes
-    L = P * HW
+    C = 1 << layouts.door_pos.shape[-2]
+    P = _pow2(HW)
+    KB = min(P, max(1, BLOCK_ELEMS // P))
+    flags, front = jax.vmap(partial(_layout_tables, P=P))(layouts)
 
-    masks = jax.vmap(partial(_build_key_masks, HW=HW))(layouts)
-    padB = (-B) % P
-    if padB:
-        masks = [
-            jnp.concatenate([m, jnp.zeros((padB,) + m.shape[1:], m.dtype)])
-            for m in masks
-        ]
-    Bp = B + padB
-    G = Bp // P
+    n_cell, n_car = P * C * 4 * P, C * 4 * P
+    flat = lambda n: pl.BlockSpec((None, n), lambda b: (b, 0))
+    buf = lambda n: jax.ShapeDtypeStruct((B, n), jnp.float32)
+    vc_a, vr_a, vc_b, vr_b = pl.pallas_call(
+        partial(
+            _key_vi_kernel, P=P, C=C, KB=KB, gamma=gamma,
+            n_sweeps=n_sweeps, barrier=not interpret,
+        ),
+        grid=(B,),
+        in_specs=[flat(4 * C * P), flat(4 * P)],
+        out_specs=[flat(n_cell), flat(n_car), flat(n_cell), flat(n_car)],
+        out_shape=[buf(n_cell), buf(n_car), buf(n_cell), buf(n_car)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="key_value_iteration",
+    )(flags.reshape(B, -1), front.reshape(B, -1))
+    vc, vr = (vc_b, vr_b) if n_sweeps % 2 else (vc_a, vr_a)
 
-    # Group P layouts per block: (Bp, 4, ..., HW) -> (G, 4, ..., P * HW),
-    # keeping K/C axes intact and concatenating rasters along lanes.
-    def group(m):
-        m = m.reshape((G, P) + m.shape[1:])          # (G, P, 4, ..., HW)
-        m = jnp.moveaxis(m, 1, -2)                   # (G, 4, ..., P, HW)
-        return m.reshape(m.shape[:-2] + (L,))        # (G, 4, ..., L)
-
-    masks = [group(m) for m in masks]
-
-    # keyfront/dropsel carry a per-layout K axis whose CELL rows refer to
-    # that layout's own raster; rows are local to each layout, so the
-    # sublane axis stays K and the mask is zero outside the layout's lane
-    # segment by construction (fidx/kloc comparisons never cross segments).
-
-    grid = (G,)
-
-    def spec(shape):
-        nd = len(shape)
-        return pl.BlockSpec(
-            (1,) + shape,
-            lambda i: (i,) + (0,) * nd,
-            memory_space=pltpu.VMEM,
-        )
-
-    kernel = partial(
-        _key_vi_kernel, C=C, K=K, W=w, HW=HW, L=L, gamma=gamma,
-        n_sweeps=n_sweeps,
-    )
-    shapes = [
-        (4, C, L), (4, L), (4, L), (4, K, L), (4, L), (4, L), (4, K, L),
-        (4, C, L), (4, C, L), (4, C, C, L),
-    ]
-    v = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[spec(s) for s in shapes],
-        out_specs=spec((C, 4, K, L)),
-        out_shape=jax.ShapeDtypeStruct((G, C, 4, K, L), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((C, 4, K, L), jnp.float32),
-            pltpu.VMEM((C, 4, K, L), jnp.float32),
-        ],
-    )(*masks)
-
-    # (G, C, 4, K, L) -> (Bp, C, 4, K, HW) -> (B, K, C, 4, H, W)
-    v = v.reshape(G, C, 4, K, P, HW)
-    v = jnp.moveaxis(v, 4, 1).reshape(Bp, C, 4, K, HW)[:B]
-    v = jnp.moveaxis(v, 3, 1)  # (B, K, C, 4, HW)
-    return v.reshape(B, K, C, 4, h, w)
+    vc = vc.reshape(B, P, C, 4, P)[:, :HW, ..., :HW]
+    vr = vr.reshape(B, 1, C, 4, P)[..., :HW]
+    return jnp.concatenate([vc, vr], axis=1).reshape(B, HW + 1, C, 4, h, w)

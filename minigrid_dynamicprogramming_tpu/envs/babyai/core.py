@@ -1,6 +1,6 @@
 """BabyAI language core: flattened instructions + device-side verifier.
 
-TPU-native re-derivation of the reference BabyAI stack
+Batched re-derivation of the reference BabyAI stack
 (/root/reference/minigrid/envs/babyai/core/verifier.py,
 roomgrid_level.py).  The reference builds a tree of ``Instr`` objects whose
 ``verify(action)`` walks Python object identity sets each step; here the

@@ -1,6 +1,6 @@
 """RoomGridLevel machinery: masked regeneration + reachability validation.
 
-TPU form of ``RoomGridLevel._gen_grid``'s regenerate-on-reject loop
+Batched form of ``RoomGridLevel._gen_grid``'s regenerate-on-reject loop
 (/root/reference/minigrid/envs/babyai/core/roomgrid_level.py:118-139): each
 level's ``gen_mission`` is a pure function returning an ``ok`` flag instead
 of raising ``RejectSampling``, and a bounded ``lax.while_loop`` redraws the

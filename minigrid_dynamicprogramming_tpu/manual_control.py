@@ -4,7 +4,7 @@ Counterpart of the reference's pygame REPL
 (/root/reference/minigrid/manual_control.py:14-80) for the functional env
 API.  Uses a pygame window when a display is available, otherwise a
 terminal loop with the ASCII grid printer — so it also works over ssh onto
-TPU hosts, which rarely have a display.
+accelerator hosts, which rarely have a display.
 
 Run: ``python -m minigrid_dynamicprogramming_tpu.manual_control --env-id ...``
 """

@@ -1,8 +1,4 @@
-from minigrid_dynamicprogramming_tpu.models.nets import (
-    ActorCritic,
-    ObsEncoder,
-    init_params,
-)
+from minigrid_dynamicprogramming_tpu.models.nets import apply, init_params
 from minigrid_dynamicprogramming_tpu.models.ppo import (
     PPO,
     PPOConfig,
@@ -11,8 +7,7 @@ from minigrid_dynamicprogramming_tpu.models.ppo import (
 )
 
 __all__ = [
-    "ActorCritic",
-    "ObsEncoder",
+    "apply",
     "init_params",
     "PPO",
     "PPOConfig",

@@ -9,7 +9,7 @@ Design:
   SGD) is ONE jitted function; nothing leaves the device between updates.
 * Environments are data-parallel along the ``"env"`` mesh axis; parameters
   are replicated.  Gradients are batch means, so XLA lowers them to a single
-  ``psum`` over ICI at the learner boundary — env stepping itself needs no
+  ``psum`` at the learner boundary — env stepping itself needs no
   communication (SURVEY.md §5, "distributed communication backend").
 * Minibatching permutes the env axis only (time stays contiguous per env),
   so resharding inside the epoch loop is a cheap all-to-all at worst.
@@ -23,10 +23,10 @@ from typing import Any, NamedTuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
+from minigrid_dynamicprogramming_tpu.core import struct
 from minigrid_dynamicprogramming_tpu.core.env import Environment
-from minigrid_dynamicprogramming_tpu.models.nets import ActorCritic, init_params
+from minigrid_dynamicprogramming_tpu.models import nets
 from minigrid_dynamicprogramming_tpu.parallel.rollout import (
     make_autoreset_step,
     make_pool_autoreset_step,
@@ -64,15 +64,15 @@ class PPOConfig:
     # straight-line XLA on the CPU backend (test/dev meshes), keep the
     # rolled lax.scan on accelerators where loops are free and unrolling
     # only bloats compile time.
-    learner_unroll: bool = struct.field(pytree_node=False, default=None)
+    learner_unroll: bool | None = struct.field(
+        pytree_node=False, default=None
+    )
     # "lanes" collects the rollout on the lane-major (batch-last) fast path
     # (parallel/lanes.py) — one obs encode per step on the bit-sliced
     # encoder, transposed to batch-first only at the model boundary; "vmap"
     # is the batch-first fallback (required for autoreset != "pool" and
-    # envs without lane support).  Measured on BabyAI-GoToDoor at 32k envs
-    # on one chip: the vmapped collector ran the rollout phase at ~69k
-    # steps/s (double obs encode per step on the slow batch-first encoder);
-    # lanes collapse that cost.
+    # envs without lane support), which encodes each observation twice per
+    # step on the batch-first encoder.
     collector: str = struct.field(pytree_node=False, default="lanes")
 
 
@@ -120,13 +120,13 @@ def _gae(rewards, values, dones, last_value, gamma, lam):
 
 
 class PPO:
-    """One env family + one ActorCritic, trained data-parallel on a mesh."""
+    """One env family + one actor-critic net, trained data-parallel on a
+    mesh."""
 
     def __init__(self, env: Environment, config: PPOConfig = PPOConfig(), mesh=None):
         self.env = env
         self.config = config
         self.mesh = mesh if mesh is not None else env_mesh()
-        self.model = ActorCritic(num_actions=env.action_dim)
         self.tx = optax.chain(
             optax.clip_by_global_norm(config.max_grad_norm),
             optax.adam(config.lr, eps=1e-5),
@@ -151,7 +151,9 @@ class PPO:
     def init(self, key: jax.Array) -> TrainState:
         cfg = self.config
         k_params, k_envs, k_loop = jax.random.split(key, 3)
-        params = init_params(self.model, k_params, self.env)
+        params = nets.init_params(
+            k_params, self.env.params.agent_view_size, self.env.action_dim
+        )
         opt_state = self.tx.init(params)
         gen = jax.jit(
             jax.vmap(self.env.generate, in_axes=(0, None)), static_argnums=(1,)
@@ -245,7 +247,7 @@ class PPO:
             ls, reset_count = carry
             k_act, k_step, k_rng = jax.random.split(key_t, 3)
             obs = self._obs_from_lanes(ls)
-            logits, value = self.model.apply(ts.params, obs)
+            logits, value = nets.apply(ts.params, obs)
             action = jax.random.categorical(k_act, logits)
             logp = jax.nn.log_softmax(logits)[jnp.arange(B), action]
             keys = jax.random.split(k_step, B) if hooked else None
@@ -275,7 +277,7 @@ class PPO:
         def rollout_body(carry, key_t):
             env_state, obs, reset_count = carry
             k_act, k_step = jax.random.split(key_t)
-            logits, value = self.model.apply(ts.params, obs)
+            logits, value = nets.apply(ts.params, obs)
             action = jax.random.categorical(k_act, logits)
             logp = jax.nn.log_softmax(logits)[
                 jnp.arange(B), action
@@ -318,7 +320,7 @@ class PPO:
             )
         obs_t, actions, logps, values, rewards, dones = traj
 
-        _, last_value = self.model.apply(ts.params, last_obs)
+        _, last_value = nets.apply(ts.params, last_obs)
         advantages, returns = _gae(
             rewards, values, dones, last_value, cfg.gamma, cfg.gae_lambda
         )
@@ -328,7 +330,7 @@ class PPO:
 
         def loss_fn(params, mb):
             obs, action, old_logp, old_value, adv, ret = mb
-            logits, value = self.model.apply(params, obs)
+            logits, value = nets.apply(params, obs)
             logp_all = jax.nn.log_softmax(logits)
             logp = jnp.take_along_axis(
                 logp_all, action[..., None], axis=-1
@@ -363,6 +365,8 @@ class PPO:
         unrolled = cfg.learner_unroll
         if unrolled is None:
             unrolled = jax.default_backend() == "cpu"
+        # Zero epochs (a rollout-only update) is an empty scan either way.
+        unrolled = unrolled and cfg.epochs > 0
 
         def epoch_step(carry, key_e):
             params, opt_state = carry
@@ -465,13 +469,20 @@ def train(
 def main() -> None:
     import argparse
 
-    p = argparse.ArgumentParser(description="PPO on a TPU-native Minigrid env")
+    p = argparse.ArgumentParser(
+        description="PPO on a batched JAX Minigrid env"
+    )
     p.add_argument("--env-id", default="MiniGrid-Empty-8x8-v0")
     p.add_argument("--num-envs", type=int, default=4096)
     p.add_argument("--rollout-len", type=int, default=64)
     p.add_argument("--updates", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
+    from minigrid_dynamicprogramming_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     cfg = PPOConfig(num_envs=args.num_envs, rollout_len=args.rollout_len)
     train(args.env_id, cfg, num_updates=args.updates, seed=args.seed)
 

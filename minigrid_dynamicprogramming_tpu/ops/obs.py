@@ -1,6 +1,6 @@
 """Egocentric partial-observation encoder.
 
-TPU-native re-derivation of ``MiniGridEnv.gen_obs_grid``/``gen_obs``
+Batched re-derivation of ``MiniGridEnv.gen_obs_grid``/``gen_obs``
 (/root/reference/minigrid/minigrid_env.py:592-645): the reference slices a
 sub-grid (OOB cells become ``Wall``), rotates it ``agent_dir + 1`` times,
 runs the sequential shadow-casting sweep ``Grid.process_vis``

@@ -2,13 +2,17 @@
 communication backend").
 
 The reference has no distributed layer at all (no NCCL/MPI/Gloo —
-SURVEY §2 verified); the TPU-native equivalent is JAX's multi-controller
-runtime: every host runs the same program, ``jax.distributed.initialize``
-forms the process group over the coordinator, and ``jax.devices()`` then
-spans the whole pod slice so a single ``Mesh`` covers all hosts.  XLA
-collectives ride ICI within a slice and DCN across slices; env stepping
-itself needs zero communication (environments are independent), so only
-metric reductions and the learner's gradient all-reduce cross devices.
+SURVEY §2 verified).  Here one process drives all of a host's GPUs:
+``jax.devices()`` lists them, ``parallel.sharding.env_mesh`` spans them,
+and XLA lowers the cross-device reductions to NCCL collectives.  Nothing in
+this module is needed for that.
+
+``jax.distributed.initialize`` is only for several hosts: every host runs
+the same program, the call forms the process group over a coordinator, and
+``jax.devices()`` then spans all hosts so one ``Mesh`` covers them.  Env
+stepping itself needs no communication (environments are independent), so
+only metric reductions and the learner's gradient all-reduce cross
+devices.
 
 Usage (same script on every host)::
 
@@ -16,7 +20,7 @@ Usage (same script on every host)::
     # package import builds device LUT constants, which initializes the
     # XLA backend, after which jax.distributed.initialize refuses to run.
     from minigrid_dynamicprogramming_tpu.parallel import distributed
-    distributed.initialize()            # env-driven (TPU pods auto-detect)
+    distributed.initialize("host0:1234", num_processes=2, process_id=0)
 
     import minigrid_dynamicprogramming_tpu as mgtpu
     mesh = distributed.global_env_mesh()
@@ -25,9 +29,9 @@ Usage (same script on every host)::
 (``parallel.distributed`` itself imports nothing that touches a device;
 importing it does not foreclose initialization.)
 
-On Cloud TPU pods all arguments are auto-detected from the metadata
-server; elsewhere pass ``coordinator_address``/``num_processes``/
-``process_id`` explicitly (mirrors ``jax.distributed.initialize``).
+Pass ``coordinator_address``/``num_processes``/``process_id`` explicitly
+(mirrors ``jax.distributed.initialize``): no cluster environment is
+detected here.
 """
 
 from __future__ import annotations

@@ -1,19 +1,17 @@
 """Lane-major (batch-last) fast path for batched stepping.
 
 Why this exists: the straightforward ``vmap``-over-leading-axis layout puts
-each env's tiny ``(H, W)`` / ``(view, view)`` planes into the TPU's minor two
-dimensions, which are tile-padded to ``(32, 128)`` — a 7x7 uint8 view plane
-occupies 4 KiB of HBM per env, ~60x wasted bandwidth on every observation
-intermediate.  Measured on one v5e chip this caps the full step+obs pipeline
-at ~0.5M env-steps/s.
+each env's tiny ``(H, W)`` / ``(view, view)`` planes into the array's minor
+two dimensions, where a layout that tiles or pads them wastes most of the
+bandwidth of every observation intermediate.
 
-Here the batch lives in the LAST (lane) dimension instead: grid planes are
+Here the batch lives in the LAST dimension instead: grid planes are
 ``(H*W, B)``, view planes ``(view*view, B)``, per-env scalars ``(B,)``.
-Every op is dense over 128-lane tiles of envs, per-env dynamic cell access
-becomes a one-hot compare + reduce over the (sublane) cell axis, and the
-sequential visibility sweep becomes static sublane shifts.  The same
-pipeline runs at >40M env-steps/s — a ~90x layout win with identical
-semantics (parity-tested against the vmapped path in tests/test_lanes.py).
+Every op is dense over the env batch, per-env dynamic cell access becomes a
+one-hot compare + reduce over the cell axis, and the sequential visibility
+sweep becomes static shifts, with identical semantics (parity-tested
+against the vmapped path in tests/test_lanes.py).  Whether this layout
+beats the vmapped one on a given card is measured, not assumed.
 
 Semantics are a port of the same reference code paths as ops/step.py and
 ops/obs.py (/root/reference/minigrid/minigrid_env.py:520-645,
@@ -28,8 +26,8 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from minigrid_dynamicprogramming_tpu.core import struct
 from minigrid_dynamicprogramming_tpu.core.constants import (
     ACT_DROP,
     ACT_FORWARD,
@@ -54,7 +52,7 @@ from minigrid_dynamicprogramming_tpu.core.state import EnvParams, EnvState
 from minigrid_dynamicprogramming_tpu.ops.step import success_reward
 
 def _dir_vec(agent_dir: jnp.ndarray):
-    """DIR_TO_VEC as compare-selects (a 4-entry gather is slower on TPU)."""
+    """DIR_TO_VEC as compare-selects (no 4-entry gather)."""
     one = jnp.ones((), jnp.int32)
     dx = jnp.where(agent_dir == 0, one, jnp.where(agent_dir == 2, -one, 0))
     dy = jnp.where(agent_dir == 1, one, jnp.where(agent_dir == 3, -one, 0))
@@ -65,7 +63,7 @@ def _dir_vec(agent_dir: jnp.ndarray):
 class LaneState:
     """Batch-last mirror of a vmapped :class:`EnvState`.
 
-    Planes are ``(H*W, B)`` (row-major cells on sublanes, envs on lanes);
+    Planes are ``(H*W, B)`` (row-major cells first, envs last);
     per-env scalars are ``(B,)``; vectors put their own axis first.
     """
 
@@ -415,8 +413,7 @@ def obs_lanes(params: EnvParams, ls: LaneState):
     shift of the selected row words instead of a W-deep compare-select
     cascade per view cell.  Direction-dependent column reversal is resolved
     at unpack time from static bit positions.  Everything runs on (B,)
-    uint32 vectors — the TPU computes uint8 at 32-bit lane width anyway, so
-    the packing is free parallelism.
+    uint32 vectors, so the packing is free parallelism.
     """
     w, h = params.width, params.height
     v = params.agent_view_size
@@ -560,7 +557,7 @@ def _process_vis_lanes(see: jnp.ndarray, v: int) -> jnp.ndarray:
     is ``(v*v, B)`` bool; the result is the same shape.
 
     Each view ROW is packed into v bits of one (B,) uint32 bitboard, so the
-    left/right OR-cascades are lane-local bit shifts instead of sublane-axis
+    left/right OR-cascades are per-env bit shifts instead of cell-axis
     concatenates (which cost a relayout each) — the whole sweep runs on
     v uint32 vectors of B lanes."""
     assert v <= 16, "row bitboard packs 2 rows of <=16 bits per uint32 word"
@@ -767,10 +764,8 @@ def lane_rollout(
     ``obs_checksum`` so the compiler cannot dead-code-eliminate it — the
     reported steps/s includes obs generation, like the reference's ``step``.
 
-    Generation and the scan compile as ONE program on purpose: splitting
-    them (pool as a cross-program input) or fencing them with
-    optimization_barrier both measured 8-11% BELOW the fused form on the
-    64k DoorKey headline on this backend, with no reliable win elsewhere.
+    Generation and the scan compile as ONE program, so XLA may fuse and
+    schedule the pool build with the first steps.
     """
     k_init, k_scan = jax.random.split(key)
     return _lane_run(

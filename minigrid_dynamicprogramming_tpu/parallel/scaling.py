@@ -15,7 +15,7 @@ Usage::
 
 On a single host the device list comes from ``jax.devices()`` (use
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu`` for
-a virtual mesh); on a pod slice call
+a virtual mesh); across several hosts call
 :func:`~minigrid_dynamicprogramming_tpu.parallel.distributed.initialize`
 first so devices span all hosts.
 """

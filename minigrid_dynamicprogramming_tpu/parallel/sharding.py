@@ -1,9 +1,8 @@
 """Device-mesh sharding of environment batches.
 
-The reference is single-threaded Python with no distributed layer; the
-TPU-native equivalent of a "distributed backend" is a
-``jax.sharding.Mesh`` over the pod slice with env state sharded along the
-batch axis.  Environment stepping needs ZERO cross-device communication
+The reference is single-threaded Python with no distributed layer; here
+the "distributed backend" is a ``jax.sharding.Mesh`` over the devices with
+env state sharded along the batch axis.  Environment stepping needs ZERO cross-device communication
 (envs are independent), so collectives appear only for metric reduction
 (``psum``-style ``jnp.sum`` under sharding) and at the learner boundary.
 

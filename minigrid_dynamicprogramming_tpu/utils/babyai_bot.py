@@ -1,4 +1,4 @@
-"""Oracle bot that solves BabyAI levels of the TPU-native framework.
+"""Oracle bot that solves BabyAI levels of the batched framework.
 
 Host-side re-derivation of the reference ``BabyAIBot``
 (/root/reference/minigrid/utils/baby_ai_bot.py:549-1026).  The reference bot

@@ -2,7 +2,7 @@
 
 The reference has no sanitizer layer (single-threaded Python; invariants are
 implicit in ``Grid.set`` bounds asserts, /root/reference/minigrid/core/
-grid.py:105-111).  On the TPU data path the equivalent is functional:
+grid.py:105-111).  On the device data path the equivalent is functional:
 ``checkify`` assertions over the state pytree that compile into the step
 program in test/debug mode and disappear entirely in production mode, plus a
 ``debug_mode`` switch for ``jax_debug_nans``/``jax_debug_infs``.

@@ -24,7 +24,7 @@ The twin is host-side test/reset infrastructure, not a throughput path:
 the device-side generators in ``envs/`` remain the production reset.
 ``twin_reset(env_id, seed)`` turns a twin layout into a device
 :class:`EnvState`, so a fixed seed yields the reference's exact episode
-end-to-end through the TPU step kernels.
+end-to-end through the device step kernels.
 """
 
 from __future__ import annotations

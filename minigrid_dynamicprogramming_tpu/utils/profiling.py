@@ -2,11 +2,11 @@
 
 The reference's only instrumentation is wall-clock FPS loops
 (/root/reference/minigrid/benchmark.py:13-49) and the bot's BFS counters
-(envs/babyai/core/baby_ai_bot.py:596-600).  The TPU-native equivalents:
+(envs/babyai/core/baby_ai_bot.py:596-600).  The device-side equivalents:
 
 - ``trace(logdir)`` — scoped ``jax.profiler`` trace capture.  The resulting
   directory opens in TensorBoard/Perfetto and shows per-HLO time on the
-  device timeline (MXU occupancy, fusion boundaries, transfer stalls).
+  device timeline (kernel durations, fusion boundaries, transfer stalls).
 - ``annotate(name)`` — a named region that shows up inside traces; wraps
   ``jax.profiler.TraceAnnotation`` (host timeline) so framework phases
   (generate / step / obs / verify) are attributable.

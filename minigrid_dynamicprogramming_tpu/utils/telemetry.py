@@ -4,7 +4,7 @@ The reference surfaces rejection-sampling exhaustion as exceptions
 (``RecursionError`` after ``max_tries`` in ``place_obj``,
 /root/reference/minigrid/minigrid_env.py:334-338; the BabyAI
 regenerate-on-``RejectSampling`` loop, envs/babyai/core/
-roomgrid_level.py:118-139).  The TPU generators replace those loops with
+roomgrid_level.py:118-139).  The device generators replace those loops with
 bounded masked redraws that *cannot* raise under jit — so exhaustion must be
 observable as telemetry instead, or a systematically-rejecting config would
 silently ship truncated (biased) layout distributions.

@@ -1,6 +1,6 @@
 """The oracle bot must solve every BabyAI level of this framework.
 
-TPU-framework analog of the reference's strongest behavioral test
+This framework's analog of the reference's strongest behavioral test
 (/root/reference/tests/test_baby_ai_bot.py:24-58): for each registered
 BabyAI id, generate an episode on device, let the host-side
 :class:`BabyAIBot` plan, and require verifier success within 240 steps.

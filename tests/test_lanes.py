@@ -1,7 +1,7 @@
 """Parity of the lane-major (batch-last) fast path vs the vmapped path.
 
-The lane kernels (parallel/lanes.py) re-lay-out the step/obs math for TPU
-lane density; semantics must be bit-identical to the vmapped reference
+The lane kernels (parallel/lanes.py) re-lay-out the step/obs math with the
+batch axis last; semantics must be bit-identical to the vmapped reference
 kernels (ops/step.py, ops/obs.py), which are themselves parity-tested
 against /root/reference.
 """

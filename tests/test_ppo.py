@@ -126,3 +126,80 @@ def test_lane_collector_obs_matches_env_observation():
             np.testing.assert_array_equal(
                 np.asarray(ref[k]), np.asarray(mine[k]), err_msg=f"{env_id} {k}"
             )
+
+
+def test_net_matches_seed_parameter_shapes():
+    """The plain-JAX net keeps the layer shapes (and so the parameter
+    count, 97,224 for a 7x7 view and 7 actions) of the earlier flax
+    module it replaced."""
+    from minigrid_dynamicprogramming_tpu.models import nets
+
+    params = nets.init_params(jax.random.PRNGKey(0), 7, 7)
+    shapes = {
+        jax.tree_util.keystr(k): x.shape
+        for k, x in jax.tree_util.tree_flatten_with_path(params)[0]
+    }
+    assert shapes == {
+        "['code_embed']": (64, 32),
+        "['code_pos']": (48, 32),
+        "['conv_0']['bias']": (32,),
+        "['conv_0']['kernel']": (3, 3, 24, 32),
+        "['conv_1']['bias']": (64,),
+        "['conv_1']['kernel']": (3, 3, 32, 64),
+        "['conv_2']['bias']": (64,),
+        "['conv_2']['kernel']": (3, 3, 64, 64),
+        "['dir_embed']": (4, 16),
+        "['plane_embed_0']": (16, 8),
+        "['plane_embed_1']": (8, 8),
+        "['plane_embed_2']": (4, 8),
+        "['trunk']['bias']": (256,),
+        "['trunk']['kernel']": (112, 256),
+        "['policy_head']['bias']": (7,),
+        "['policy_head']['kernel']": (256, 7),
+        "['value_head']['bias']": (1,),
+        "['value_head']['kernel']": (256, 1),
+    }
+    assert sum(x.size for x in jax.tree_util.tree_leaves(params)) == 97224
+    assert all(
+        x.dtype == np.float32 for x in jax.tree_util.tree_leaves(params)
+    )
+
+
+def test_net_forward_batched_and_unbatched():
+    """Leading batch axes are free: a batch and its first element give the
+    same row; logits/value come out float32."""
+    from minigrid_dynamicprogramming_tpu.models import nets
+
+    env = mgtpu.make("BabyAI-GoToDoor-v0")
+    obs, _ = jax.vmap(env.reset)(jax.random.split(jax.random.PRNGKey(1), 4))
+    params = nets.init_params(jax.random.PRNGKey(0), 7, env.action_dim)
+    logits, value = nets.apply(params, obs)
+    assert logits.shape == (4, env.action_dim) and value.shape == (4,)
+    assert logits.dtype == np.float32 and value.dtype == np.float32
+    one = jax.tree_util.tree_map(lambda x: x[0], obs)
+    l1, v1 = nets.apply(params, one)
+    np.testing.assert_allclose(l1, logits[0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(v1, value[0], rtol=1e-6, atol=1e-6)
+
+
+def test_rolled_learner_matches_unrolled():
+    """The rolled lax.scan learner (what accelerators run) and the
+    Python-unrolled one (the CPU default) compute the same update."""
+    env = mgtpu.make("MiniGrid-Empty-5x5-v0")
+    out = []
+    for unroll in (True, False):
+        cfg = PPOConfig(
+            num_envs=16, rollout_len=8, epochs=2, num_minibatches=2,
+            learner_unroll=unroll,
+        )
+        ppo = PPO(env, cfg, mesh=env_mesh(jax.devices()[:1]))
+        ts, m = ppo.update(ppo.init(jax.random.PRNGKey(4)))
+        out.append(jax.device_get((ts.params, m)))
+    (p_unrolled, m_unrolled), (p_rolled, m_rolled) = out
+    for a, b in zip(
+        jax.tree_util.tree_leaves(p_unrolled),
+        jax.tree_util.tree_leaves(p_rolled),
+    ):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    for a, b in zip(m_unrolled, m_rolled):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)

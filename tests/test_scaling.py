@@ -62,12 +62,16 @@ mesh = distributed.global_env_mesh()
 assert mesh.devices.size == len(jax.devices()) == 4, mesh
 print(distributed.process_summary())
 """
+    import pathlib
+
+    import minigrid_dynamicprogramming_tpu as mgtpu
+
     out = subprocess.run(
         [sys.executable, "-c", prog],
         capture_output=True,
         text=True,
         timeout=300,
-        cwd="/root/repo",
+        cwd=str(pathlib.Path(mgtpu.__file__).resolve().parent.parent),
     )
     assert out.returncode == 0, out.stderr
     assert "process 0/1" in out.stdout
@@ -80,8 +84,10 @@ addr, pid, out_path = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_cpu_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from minigrid_dynamicprogramming_tpu.utils.compile_cache import (
+    enable_compile_cache,
+)
+enable_compile_cache()
 from minigrid_dynamicprogramming_tpu.parallel import distributed
 distributed.initialize(addr, num_processes=2, process_id=pid)
 import numpy as np

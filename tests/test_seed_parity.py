@@ -28,7 +28,7 @@ from minigrid_dynamicprogramming_tpu.utils.parity_twin import (
 
 from .oracle import action_script, make_reference_env
 
-# 3 seeds/id in the default tier (VERDICT r4 #6: trim FAST_SEEDS); the
+# 3 seeds/id in the default tier; the
 # slow tier covers 200 seeds/id.
 FAST_SEEDS = list(range(3))
 SLOW_SEEDS = list(range(200))

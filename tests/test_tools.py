@@ -122,3 +122,26 @@ def test_checkpoint_integrity_check(tmp_path):
         ckpt.restore(
             str(tmp_path / "ck"), target, env_state_of=lambda t: t["env_state"]
         )
+
+
+def test_compile_cache_dir(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing is set in code;
+    otherwise the cache is the fixed .jax_cache at the checkout root."""
+    import pathlib
+
+    from minigrid_dynamicprogramming_tpu.utils import compile_cache
+
+    root = pathlib.Path(mgtpu.__file__).resolve().parent.parent
+    assert compile_cache.CACHE_DIR == str(root / ".jax_cache")
+
+    calls = []
+    monkeypatch.setattr(
+        jax.config, "update", lambda name, value: calls.append((name, value))
+    )
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+    assert compile_cache.enable_compile_cache() == "/elsewhere/cache"
+    assert calls == []
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    assert compile_cache.enable_compile_cache() == compile_cache.CACHE_DIR
+    assert ("jax_compilation_cache_dir", compile_cache.CACHE_DIR) in calls
